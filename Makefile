@@ -1,6 +1,6 @@
-# pffdtd_tpu build + test entry points
+# pffdtd_jax build + test entry points
 #
-# The compute path is JAX/Pallas (no build step); `native` builds the
+# The compute path is JAX (no build step); `native` builds the
 # C++/OpenMP voxelizer backend (also built lazily on first use).
 
 CXX ?= g++

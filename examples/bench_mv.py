@@ -2,7 +2,7 @@
 
 Reference conditions (benchmarks/README.md): 11-branch materials, impulse +
 diff source, single precision, MVPS = Npts*Nsamples/runtime/1e6.  fmax is
-capped by the 16 GB HBM of one v5e chip (the reference's headline rows run
+capped by the memory of one device (the reference's headline rows run
 1e9..32e9 voxels across multi-GPU boxes).
 
 Run: python examples/bench_mv.py [FMAX=2000] [NT=100] [FCC=1]
@@ -31,10 +31,10 @@ MV_MATS = {
 }
 
 if __name__ == "__main__":
-    from pffdtd_tpu.geometry.room import RoomGeo
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.scene_setup import pack_mats, sim_setup_from_room
-    from pffdtd_tpu.prep import fold_fcc_sim, rotate_sim, sort_sim
+    from pffdtd_jax.geometry.room import RoomGeo
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.scene_setup import pack_mats, sim_setup_from_room
+    from pffdtd_jax.prep import fold_fcc_sim, rotate_sim, sort_sim
 
     t0 = time.time()
     rg = RoomGeo(f"{REF}/models/Musikverein_ConcertHall/model_export.json")

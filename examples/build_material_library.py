@@ -4,7 +4,7 @@ The reference ships data/materials/*.h5 produced by its build_mats.py
 (reference build_mats.py:24-64); this script regenerates the same
 library from the same published octave-band Sabine absorption tables
 (16 Hz - 16 kHz centres, 11 bands) through our 11-band fit
-(pffdtd_tpu.materials.admittance.fit_to_Sabs_oct_11), closing the
+(pffdtd_jax.materials.admittance.fit_to_Sabs_oct_11), closing the
 layer-B reproducibility gap: a user can rebuild or extend the library
 without the reference checkout.
 
@@ -15,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-from pffdtd_tpu.materials.admittance import (
+from pffdtd_jax.materials.admittance import (
     convert_R_to_Yn, convert_Sabs_to_Yn, fit_to_Sabs_oct_11,
     write_freq_dep_mat, write_freq_ind_mat_from_Yn)
 

@@ -26,9 +26,9 @@ CTK_MATS = {
 }
 
 if __name__ == "__main__":
-    from pffdtd_tpu.scene_setup import sim_setup
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.analysis.process_outputs import ProcessOutputs
+    from pffdtd_jax.scene_setup import sim_setup
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.analysis.process_outputs import ProcessOutputs
 
     sim_setup(
         model_json_file=f"{REF}/models/CTK_Church/model_export.json",

@@ -26,9 +26,9 @@ MV_MATS = {
 }
 
 if __name__ == "__main__":
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.scene_setup import sim_setup
-    from pffdtd_tpu.viz import render_animation
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.scene_setup import sim_setup
+    from pffdtd_jax.viz import render_animation
 
     sim_setup(
         model_json_file=f"{REF}/models/Musikverein_ConcertHall"

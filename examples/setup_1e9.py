@@ -42,9 +42,9 @@ def main():
     ap.add_argument("--h", type=float, default=None)
     args = ap.parse_args()
 
-    from pffdtd_tpu.geometry.room import RoomGeo
-    from pffdtd_tpu.scene_setup import mats_from_DEF_list, sim_setup_from_room
-    from pffdtd_tpu.parallel.sharded_engine import ShardedEngine
+    from pffdtd_jax.geometry.room import RoomGeo
+    from pffdtd_jax.scene_setup import mats_from_DEF_list, sim_setup_from_room
+    from pffdtd_jax.parallel.sharded_engine import ShardedEngine
 
     # 32 x 25 x 20 m hall; h chosen so Npts >= target
     L = np.array([32.0, 25.0, 20.0])
@@ -62,7 +62,7 @@ def main():
 
     # nudge h so Nx divides the 8-shard mesh (the reference instead rotates
     # axes / regenerates; a sub-0.5% h change is inside the PPW tolerance)
-    from pffdtd_tpu.voxelizer.grid import CartGrid
+    from pffdtd_jax.voxelizer.grid import CartGrid
     for _ in range(64):
         cg = CartGrid(h=h, offset=3.5, bmin=rg.bmin, bmax=rg.bmax)
         if cg.Nx % 8 == 0:

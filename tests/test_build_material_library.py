@@ -18,7 +18,7 @@ REF_MATS = Path("/root/reference/data/materials")
 
 
 def _absorption(DEF, fv):
-    from pffdtd_tpu.materials.admittance import compute_Rf_from_DEF
+    from pffdtd_jax.materials.admittance import compute_Rf_from_DEF
 
     jw = 1j * 2 * np.pi * fv
     Rf, _, _, _ = compute_Rf_from_DEF(jw, DEF[:, 0], DEF[:, 1], DEF[:, 2])
@@ -30,7 +30,7 @@ def _absorption(DEF, fv):
 def test_regenerated_matches_bundled(tmp_path, name):
     import h5py
     from build_material_library import SABS_TABLES
-    from pffdtd_tpu.materials.admittance import fit_to_Sabs_oct_11
+    from pffdtd_jax.materials.admittance import fit_to_Sabs_oct_11
 
     DEF = fit_to_Sabs_oct_11(np.asarray(SABS_TABLES[name], float),
                              filename=tmp_path / f"{name}.h5")

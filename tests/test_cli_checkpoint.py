@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from pffdtd_tpu.demo import synthetic_box_sim
-from pffdtd_tpu.engine.jax_engine import JaxEngine
-from pffdtd_tpu.scene_setup import save_sim_data
+from pffdtd_jax.demo import synthetic_box_sim
+from pffdtd_jax.engine.jax_engine import JaxEngine
+from pffdtd_jax.scene_setup import save_sim_data
 
 
 def _sim():
@@ -42,7 +42,7 @@ def test_checkpoint_resume(tmp_path):
 
 
 def test_cli_sim_and_process(tmp_path):
-    from pffdtd_tpu.cli import main
+    from pffdtd_jax.cli import main
 
     sim = _sim()
     save_sim_data(sim, tmp_path)
@@ -57,7 +57,7 @@ def test_cli_sim_and_process(tmp_path):
 
 
 def test_cli_numpy_engine(tmp_path):
-    from pffdtd_tpu.cli import main
+    from pffdtd_jax.cli import main
 
     sim = _sim()
     save_sim_data(sim, tmp_path)
@@ -66,11 +66,37 @@ def test_cli_numpy_engine(tmp_path):
 
 
 def test_cli_fit_material(tmp_path):
-    from pffdtd_tpu.cli import main
-    from pffdtd_tpu.io.h5 import read_mat_file
+    from pffdtd_jax.cli import main
+    from pffdtd_jax.io.h5 import read_mat_file
 
     out = tmp_path / "mat.h5"
     main(["fit-material", "--out", str(out),
           "--sabs", ".1,.1,.2,.3,.4,.5,.5,.5,.5,.4,.4"])
     DEF = read_mat_file(out)
     assert DEF.shape == (11, 3)
+
+
+def test_cli_f64_matches_oracle(tmp_path):
+    """--f64 must switch JAX to 64-bit itself: with x64 off beforehand, an
+    fp64 run would otherwise compute in fp32 (~1e-6 off the oracle)."""
+    import jax
+
+    from pffdtd_jax.cli import main
+    from pffdtd_jax.engine.numpy_ref import NumpyEngine
+    from pffdtd_jax.io.h5 import read_outputs
+
+    sim = _sim()
+    save_sim_data(sim, tmp_path)
+    jax.config.update("jax_enable_x64", False)
+    try:
+        eng = main(["sim", "--data_dir", str(tmp_path), "--f64"])
+        assert jax.config.jax_enable_x64
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    assert eng.data.dtype == np.float64
+    ref = NumpyEngine(tmp_path)
+    ref.run_all()
+    u = read_outputs(tmp_path)
+    scale = np.abs(ref.u_out).max()
+    assert scale > 0
+    assert np.abs(u - ref.u_out[ref.comms.out_reorder]).max() / scale < 1e-12

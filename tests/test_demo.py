@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pffdtd_tpu.demo import make_shoebox_room, synthetic_box_sim
-from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-from pffdtd_tpu.voxelizer import CartGrid, VoxScene
+from pffdtd_jax.demo import make_shoebox_room, synthetic_box_sim
+from pffdtd_jax.engine.numpy_ref import NumpyEngine
+from pffdtd_jax.voxelizer import CartGrid, VoxScene
 
 
 @pytest.mark.parametrize("fcc", [False, True])
@@ -23,7 +23,7 @@ def test_synthetic_matches_voxelizer(fcc):
     # in-room nodes must agree exactly; exterior shell nodes may differ on
     # FCC diagonal legs that graze the box corner lines exactly (the ray
     # caster's d_eps slack counts those as hits) — they are never excited
-    from pffdtd_tpu.utils import ind2sub3d
+    from pffdtd_jax.utils import ind2sub3d
 
     ix, iy, iz = ind2sub3d(vs.bn_ixyz, cg.Nx, cg.Ny, cg.Nz)
     x, y, z = cg.xv[ix], cg.yv[iy], cg.zv[iz]
@@ -44,7 +44,7 @@ def test_synthetic_energy_balance():
     eng = NumpyEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                       mats=sim.mats, energy_on=True)
     eng.run_all()
-    from pffdtd_tpu.utils import rel_diff
+    from pffdtd_jax.utils import rel_diff
 
     n = eng.n
     live = eng.E_in[:n] > 0

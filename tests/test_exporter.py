@@ -12,9 +12,9 @@ import json
 import numpy as np
 import pytest
 
-from pffdtd_tpu.geometry.exporter import (INCHES2METRES, SceneExporter,
+from pffdtd_jax.geometry.exporter import (INCHES2METRES, SceneExporter,
                                           export_box_room)
-from pffdtd_tpu.geometry.room import RoomGeo
+from pffdtd_jax.geometry.room import RoomGeo
 
 
 def test_paint_classification(tmp_path):
@@ -68,9 +68,9 @@ def test_csv_intake(tmp_path):
 def test_roundtrip_sim(tmp_path):
     """Exporter output must drive the FULL pipeline: RoomGeo -> setup ->
     oracle engine with the energy balance at machine precision."""
-    from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-    from pffdtd_tpu.scene_setup import mats_from_DEF_list, sim_setup_from_room
-    from pffdtd_tpu.utils import rel_diff
+    from pffdtd_jax.engine.numpy_ref import NumpyEngine
+    from pffdtd_jax.scene_setup import mats_from_DEF_list, sim_setup_from_room
+    from pffdtd_jax.utils import rel_diff
 
     path = tmp_path / "model_export.json"
     export_box_room(path, (2.0, 3.0, 2.5),

@@ -4,8 +4,8 @@ fdtd_common.h:43-71 / README.md:71-74)."""
 
 import numpy as np
 
-from pffdtd_tpu.demo import synthetic_box_sim
-from pffdtd_tpu.engine.jax_engine import JaxEngine
+from pffdtd_jax.demo import synthetic_box_sim
+from pffdtd_jax.engine.jax_engine import JaxEngine
 
 
 def test_fp32_long_run_stays_bounded():

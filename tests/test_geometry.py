@@ -5,8 +5,8 @@ analytic cases)."""
 import numpy as np
 import pytest
 
-from pffdtd_tpu.geometry import tris_precompute, tri_ray_intersect, tri_box_intersect
-from pffdtd_tpu.utils import normalise
+from pffdtd_jax.geometry import tris_precompute, tri_ray_intersect, tri_box_intersect
+from pffdtd_jax.utils import normalise
 
 
 def _scalar_ray_tri(ro, rd, tri, i, d_eps=1e-6, cp_eps=1e-6):
@@ -99,7 +99,7 @@ def test_box_primitive(tmp_path):
     """Rotatable box (reference common/box.py): halfspace form agrees
     with the rotated vertices, AABB is tight, randomise stays valid,
     and the matplotlib debug draw renders."""
-    from pffdtd_tpu.geometry.box import Box
+    from pffdtd_jax.geometry.box import Box
 
     rng = np.random.default_rng(7)
     for _ in range(20):

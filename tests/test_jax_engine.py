@@ -1,96 +1,98 @@
-"""JAX engine vs the NumPy oracle: outputs to machine accuracy, on-device
-energy balance, fp32 path sanity (the reference's own cross-engine criterion,
-README.md:60)."""
+"""JAX engine vs the NumPy oracle: outputs to machine accuracy in fp64,
+padding invariance, fp32 path sanity (the reference's own cross-engine
+criterion, README.md:60)."""
 
 import numpy as np
 import pytest
 
-from pffdtd_tpu.engine.jax_engine import JaxEngine
-from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-from pffdtd_tpu.scene_setup import mats_from_DEF_list, sim_setup_from_room
+import jax
 
-from conftest import make_shoebox
+from pffdtd_jax.engine.jax_engine import JaxEngine
+from pffdtd_jax.engine.numpy_ref import NumpyEngine
 
-DEF3 = np.array([[2.0, 5.0, 30.0],
-                 [1.0, 10.0, 300.0],
-                 [0.5, 8.0, 3000.0]])
+import scenes
 
-
-def _setup(fcc=False, mats=None, DEF_list=(), sig="hann10", duration=0.02,
-           h=0.25, diff=False):
-    rg = make_shoebox(mats=mats)
-    md = mats_from_DEF_list(list(DEF_list))
-    return sim_setup_from_room(
-        rg, md, duration=duration, insig_type=sig, h=h, fcc_flag=fcc,
-        diff_source=diff, vox_backend="numpy", block_size=16)
+# odd_nx also runs an odd step count: the scan pads the last pair
+ORACLE_NT = {"odd_nx": 47}
 
 
-def _both(sim, **kw):
+def _oracle(sim, nt=None):
     o = NumpyEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                     mats=sim.mats)
-    o.run_all()
+    nt = nt or o.Nt
+    o.run_steps(nt)
+    return o.u_out[:, :nt]
+
+
+def _jax(sim, nt=None, **kw):
+    kw.setdefault("dtype", np.float64)
     j = JaxEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                  mats=sim.mats, dtype=np.float64, **kw)
-    j.run(verbose=False)
-    return o, j
+                  mats=sim.mats, **kw)
+    return j.run(nt=nt, verbose=False)
 
 
-def _assert_close(o, j, tol=1e-12):
-    scale = np.abs(o.u_out).max()
+def _assert_close(u, ref, tol=1e-12):
+    scale = np.abs(ref).max()
     assert scale > 0
-    err = np.abs(j.u_out - o.u_out).max() / scale
+    err = np.abs(u - ref).max() / scale
     assert err < tol, f"max rel err {err:.3e}"
 
 
-def test_matches_oracle_rigid_cart():
-    sim = _setup()
-    o, j = _both(sim)
-    _assert_close(o, j)
+@pytest.mark.parametrize("rigid", ["dense", "sparse"])
+@pytest.mark.parametrize("scene", list(scenes.SCENES))
+def test_matches_oracle(scene, rigid):
+    sim = scenes.make(scene)
+    nt = ORACLE_NT.get(scene)
+    u = _jax(sim, nt=nt, rigid=rigid)
+    ref = _oracle(sim, nt)
+    assert u.shape == ref.shape
+    _assert_close(u, ref)
 
 
-def test_matches_oracle_lossy_cart():
-    sim = _setup(mats=["w"] * 6, DEF_list=[DEF3])
-    o, j = _both(sim)
-    _assert_close(o, j)
-
-
-def test_matches_oracle_fcc():
-    sim = _setup(fcc=True, mats=["w"] * 6, DEF_list=[DEF3], h=0.2)
-    o, j = _both(sim)
-    _assert_close(o, j)
-
-
-def test_padding_invariance():
-    """z-padding for TPU lane alignment must not change results at all."""
-    sim = _setup(mats=["w"] * 6, DEF_list=[DEF3])
-    j1 = JaxEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                   mats=sim.mats, dtype=np.float64, pad_z=None)
-    j2 = JaxEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                   mats=sim.mats, dtype=np.float64, pad_z=128)
-    j1.run(verbose=False)
-    j2.run(verbose=False)
-    assert np.array_equal(j1.u_out, j2.u_out)
-
-
-def test_on_device_energy_balance():
-    sim = _setup(mats=["w"] * 6, DEF_list=[DEF3])
-    j = JaxEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                  mats=sim.mats, dtype=np.float64, energy_on=True)
-    j.run(verbose=False)
-    bal = j.energy_balance()
-    assert np.max(np.abs(bal)) < 1e-10
-    assert j.E_lost[-1] > 0
+@pytest.mark.parametrize("rigid", ["dense", "sparse"])
+@pytest.mark.parametrize("scene", ["cart_lossy", "folded_lossy"])
+def test_padding_invariance(scene, rigid):
+    """z-padding the grid must not change results at all."""
+    sim = scenes.make(scene)
+    u1 = _jax(sim, rigid=rigid)
+    u2 = _jax(sim, rigid=rigid, pad_z=32)
+    assert np.array_equal(u1, u2)
 
 
 def test_fp32_runs_and_tracks_fp64():
-    sim = _setup(mats=["w"] * 6, DEF_list=[DEF3], sig="hann20", duration=0.03)
+    sim = scenes.shoebox_sim(lossy=True, sig="hann20", duration=0.03)
+    ref = _oracle(sim)
+    u = _jax(sim, dtype=np.float32)
+    assert np.isfinite(u).all()
+    # fp32 rounding accumulation
+    _assert_close(u, ref, tol=1e-3)
+
+
+def test_float64_requires_x64():
+    sim = scenes.shoebox_sim()
+    jax.config.update("jax_enable_x64", False)
+    try:
+        with pytest.raises(ValueError, match="jax_enable_x64"):
+            _jax(sim, dtype=np.float64)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+
+
+def test_rejects_unknown_rigid_mode():
+    with pytest.raises(ValueError, match="rigid"):
+        _jax(scenes.shoebox_sim(), rigid="pallas")
+
+
+@pytest.mark.parametrize("rigid", ["dense", "sparse"])
+def test_fp32_eps_shift_matches_oracle(rigid):
+    """The fp32 diagonal shift is a scheme change the oracle reproduces:
+    in fp64 both run (1+EPS)*K on every node's degree."""
+    from pffdtd_jax.engine.coeffs import FP32_EPS
+
+    sim = scenes.make("cart_lossy")
     o = NumpyEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                    mats=sim.mats)
+                    mats=sim.mats, fp32_eps=1e3 * FP32_EPS)
     o.run_all()
-    j = JaxEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                  mats=sim.mats, dtype=np.float32)
-    j.run(verbose=False)
-    scale = np.abs(o.u_out).max()
-    err = np.abs(j.u_out - o.u_out).max() / scale
-    assert err < 1e-3, f"fp32 deviated: {err:.3e}"  # fp32 rounding accumulation
-    assert np.isfinite(j.u_out).all()
+    u = _jax(sim, rigid=rigid, fp32_eps=1e3 * FP32_EPS)
+    _assert_close(u, o.u_out)
+    assert np.abs(u - _oracle(sim)).max() > 1e-9 * np.abs(u).max()

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from pffdtd_tpu.materials import (compute_Rf_from_DEF, convert_R_to_Yn,
+from pffdtd_jax.materials import (compute_Rf_from_DEF, convert_R_to_Yn,
                                   convert_Sabs_to_Yn, convert_Yn_to_R,
                                   fit_to_Sabs_oct_11, from_DEF, to_DEF)
-from pffdtd_tpu.analysis.air_abs import (air_absorption, apply_modal_filter,
+from pffdtd_jax.analysis.air_abs import (air_absorption, apply_modal_filter,
                                          apply_ola_filter, apply_visco_filter)
 
 

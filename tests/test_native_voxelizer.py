@@ -5,7 +5,7 @@ import shutil
 import numpy as np
 import pytest
 
-from pffdtd_tpu.voxelizer import CartGrid, VoxScene
+from pffdtd_jax.voxelizer import CartGrid, VoxScene
 
 from conftest import make_shoebox
 
@@ -35,8 +35,8 @@ def test_native_matches_numpy_shoebox(fcc):
 
 def test_native_matches_numpy_rotated():
     """Tilted geometry exercises grazing hits / SAF differences."""
-    from pffdtd_tpu.geometry.room import RoomGeo
-    from pffdtd_tpu.utils import rotate_az_el_deg
+    from pffdtd_jax.geometry.room import RoomGeo
+    from pffdtd_jax.utils import rotate_az_el_deg
 
     rg0 = make_shoebox(mats=["w"] * 6)
     R, _, _ = rotate_az_el_deg(30.0, 15.0)

@@ -9,8 +9,8 @@ lossy boundaries, ABCs and source bookkeeping all at once.
 import numpy as np
 import pytest
 
-from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-from pffdtd_tpu.scene_setup import mats_from_DEF_list, sim_setup_from_room
+from pffdtd_jax.engine.numpy_ref import NumpyEngine
+from pffdtd_jax.scene_setup import mats_from_DEF_list, sim_setup_from_room
 
 from conftest import make_shoebox
 
@@ -34,7 +34,7 @@ def _balance(eng):
     tot = eng.H_tot[:n] + eng.E_lost[:n]
     live = eng.E_in[:n] > 0
     assert live.any()
-    from pffdtd_tpu.utils import rel_diff
+    from pffdtd_jax.utils import rel_diff
 
     return np.max(np.abs(rel_diff(tot[live], eng.E_in[:n][live])))
 

@@ -6,11 +6,12 @@ changes, hence not bitwise).
 """
 
 import numpy as np
+import pytest
 
-from pffdtd_tpu.demo import synthetic_box_sim
-from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-from pffdtd_tpu.engine.jax_engine import JaxEngine
-from pffdtd_tpu.prep import fold_fcc_sim, rotate_sim, sort_sim
+from pffdtd_jax.demo import synthetic_box_sim
+from pffdtd_jax.engine.numpy_ref import NumpyEngine
+from pffdtd_jax.engine.jax_engine import JaxEngine
+from pffdtd_jax.prep import fold_fcc_sim, rotate_sim, sort_sim
 
 
 def _run(sim, engine="numpy"):
@@ -38,21 +39,36 @@ def test_rotate_preserves_outputs():
 
 def test_rotate_descending():
     sim = synthetic_box_sim(1.5, 2.6, 2.0, h=0.14, Nt=10, lossy=False)
-    rot = rotate_sim(sim, orient="descending")
+    rot = rotate_sim(sim)
     assert rot.vox.Nx >= rot.vox.Ny >= rot.vox.Nz
 
 
-def test_rotate_auto_puts_fewest_faces_on_z():
-    # a box: faces normal to axis k have area = product of the other two
-    # extents, so the LONGEST axis has the fewest boundary faces -> z
-    sim = synthetic_box_sim(1.5, 2.6, 2.0, h=0.14, Nt=10, lossy=False)
+@pytest.mark.parametrize("dims,want", [((1.5, 2.6, 2.0), (1, 2, 0)),
+                                       ((2.6, 2.0, 1.5), None),
+                                       ((2.0, 1.5, 2.6), (2, 0, 1))])
+def test_rotate_auto_rule(dims, want):
+    # the reference's rule: dims in descending order, longest on x (the
+    # slab axis); an already-descending grid is returned unchanged
+    sim = synthetic_box_sim(*dims, h=0.14, Nt=10, lossy=False)
+    N = (sim.vox.Nx, sim.vox.Ny, sim.vox.Nz)
     rot = rotate_sim(sim)
-    from pffdtd_tpu.prep import boundary_face_counts
+    if want is None:
+        assert rot is sim
+    else:
+        assert (rot.vox.Nx, rot.vox.Ny, rot.vox.Nz) == tuple(
+            N[k] for k in want)
 
-    counts = boundary_face_counts(rot.vox)
-    assert counts[2] == counts.min()
-    assert rot.vox.Nz >= max(rot.vox.Nx, rot.vox.Ny)  # box: longest -> z
-    assert rot.vox.Nx >= rot.vox.Ny
+
+def test_rotate_auto_keeps_folded_y():
+    # a folded FCC grid's half-y axis must stay on y; x and z still take
+    # the longer and the shorter of the other two
+    sim = synthetic_box_sim(1.7, 2.3, 3.1, h=0.09, Nt=10, fcc=True,
+                            lossy=False)
+    folded = fold_fcc_sim(sim)
+    rot = rotate_sim(folded)
+    assert rot.vox.Ny == folded.vox.Ny
+    assert (rot.vox.Nx, rot.vox.Nz) == (folded.vox.Nz, folded.vox.Nx)
+    assert rot.vox.Nx >= rot.vox.Nz
 
 
 def test_sort_preserves_outputs():
@@ -108,26 +124,3 @@ def test_rotate_after_fold_preserves_outputs():
         (folded.vox.Nz, folded.vox.Ny, folded.vox.Nx)
     out = _run(rot)
     assert np.allclose(out, base, rtol=0, atol=1e-12 * np.abs(base).max())
-
-
-def test_orientation_score_bulk_beats_face_tiebreak():
-    # round-4 regression: the z-normal-face tiebreak at 0.5 ns/leg
-    # overrode a real TX=8-vs-TX=6 bulk-rate gap on the 125-Mvox
-    # synthetic hall and cost 23% of the headline (21.5 -> 16.5 GVPS).
-    # Lock both decisions: the hall keeps its short axis on z (TX=8
-    # plane rows), the folded MV keeps the 1664 axis on x (tiles).
-    from pffdtd_tpu.prep import orientation_scores
-
-    # synthetic bench hall, pre-fold interleaved dims; faces ~ 4x the
-    # normal wall areas in voxels (two walls, ~2 cut legs per node)
-    N = (792, 618, 510)
-    faces = 4 * np.array([N[1] * N[2], N[0] * N[2], N[0] * N[1]])
-    s = orientation_scores(N, faces, fcc=1)
-    assert int(np.argmin(s)) == 2, s
-    # Musikverein, folded orientation A (646, 250, 1664): axis 0 on z
-    # (tr = (2, 1, 0)) affords TX=8 rows; y (folded) must score inf
-    N = (646, 250, 1664)
-    faces = 4 * np.array([N[1] * N[2], N[0] * N[2], N[0] * N[1]])
-    s = orientation_scores(N, faces, fcc=2)
-    assert s[1] == np.inf
-    assert int(np.argmin(s)) == 0, s

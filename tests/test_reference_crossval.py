@@ -65,7 +65,7 @@ def ref_engine_mod():
 
 def _make_folder(tmp_path, lossy):
     from conftest import make_shoebox
-    from pffdtd_tpu.scene_setup import (mats_from_DEF_list,
+    from pffdtd_jax.scene_setup import (mats_from_DEF_list,
                                         sim_setup_from_room)
 
     DEF = [np.array([[2.0, 5.0, 30.0], [1.0, 10.0, 300.0]])]
@@ -102,7 +102,7 @@ def test_reference_engine_sample_equality(tmp_path, ref_engine_mod, lossy):
     # the reference engine's energy oracle must hold on OUR sim folder: this
     # validates the whole setup pipeline (voxelizer, SAF, comms, materials)
     # against physics, independent of our engines
-    from pffdtd_tpu.utils import rel_diff
+    from pffdtd_jax.utils import rel_diff
 
     n = ref.Nt
     live = ref.E_in[:n] > 0
@@ -111,7 +111,7 @@ def test_reference_engine_sample_equality(tmp_path, ref_engine_mod, lossy):
     assert np.abs(bal).max() < 1e-10
 
     # our oracle engine vs the reference engine: machine accuracy
-    from pffdtd_tpu.engine.numpy_ref import NumpyEngine
+    from pffdtd_jax.engine.numpy_ref import NumpyEngine
 
     mine = NumpyEngine(tmp_path)
     mine.run_all()
@@ -119,7 +119,7 @@ def test_reference_engine_sample_equality(tmp_path, ref_engine_mod, lossy):
     assert np.abs(mine.u_out - ref.u_out).max() <= 1e-13 * scale
 
     # the jitted engine too (fp64 on the CPU test platform)
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
+    from pffdtd_jax.engine.jax_engine import JaxEngine
 
     je = JaxEngine(tmp_path, dtype=np.float64)
     je.run(verbose=False)

@@ -30,7 +30,7 @@ CTK_MATS = {
 
 @pytest.fixture(scope="module")
 def ctk_folder(tmp_path_factory):
-    from pffdtd_tpu.scene_setup import sim_setup
+    from pffdtd_jax.scene_setup import sim_setup
 
     folder = tmp_path_factory.mktemp("ctk")
     sim_setup(
@@ -46,8 +46,8 @@ def ctk_folder(tmp_path_factory):
 
 
 def test_ctk_energy_balance_and_engines(ctk_folder):
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.engine.numpy_ref import NumpyEngine
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.engine.numpy_ref import NumpyEngine
 
     eng = JaxEngine(str(ctk_folder), dtype=np.float64, energy_on=True)
     eng.run(verbose=False)
@@ -64,8 +64,8 @@ def test_ctk_energy_balance_and_engines(ctk_folder):
 def test_ctk_post_processing(ctk_folder):
     import h5py
 
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.analysis.process_outputs import ProcessOutputs
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.analysis.process_outputs import ProcessOutputs
 
     if not (ctk_folder / "sim_outs.h5").exists():
         eng = JaxEngine(str(ctk_folder), dtype=np.float64)
@@ -99,12 +99,12 @@ MV_MATS = {
 def test_mv_fcc_folded_pipeline(tmp_path):
     """Musikverein hall: interleaved-FCC oracle vs the rotate+fold+sort
     prepared folder through the JAX engine (the reference's GPU prep path)."""
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-    from pffdtd_tpu.geometry.room import RoomGeo
-    from pffdtd_tpu.geometry.scene_io import room_to_model_json
-    from pffdtd_tpu.io.h5 import read_comms
-    from pffdtd_tpu.scene_setup import sim_setup
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.engine.numpy_ref import NumpyEngine
+    from pffdtd_jax.geometry.room import RoomGeo
+    from pffdtd_jax.geometry.scene_io import room_to_model_json
+    from pffdtd_jax.io.h5 import read_comms
+    from pffdtd_jax.scene_setup import sim_setup
 
     rg = RoomGeo(str(REF / "models/Musikverein_ConcertHall/model_export.json"))
     # the bundled receivers sit < 0.3 m from seats (fine at the reference's

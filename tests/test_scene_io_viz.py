@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from pffdtd_tpu.geometry.room import RoomGeo
-from pffdtd_tpu.geometry.scene_io import (read_positions_csv,
+from pffdtd_jax.geometry.room import RoomGeo
+from pffdtd_jax.geometry.scene_io import (read_positions_csv,
                                           room_to_model_json,
                                           write_model_json)
 
@@ -44,7 +44,7 @@ def test_reference_csv_files():
 
 
 def test_rel_diff_zero_guard():
-    from pffdtd_tpu.utils import rel_diff
+    from pffdtd_jax.utils import rel_diff
 
     d = rel_diff(np.array([0.0, 4.0]), np.array([0.0, 4.0 + 4e-16]))
     assert np.isfinite(d).all()
@@ -55,7 +55,7 @@ def test_rel_diff_zero_guard():
 def test_draw_vox_hook(tmp_path):
     """sim_setup's draw_vox hook renders the voxelization to a PNG
     (reference parity: sim_setup.py:44-45 draw path)."""
-    from pffdtd_tpu.scene_setup import sim_setup_from_room
+    from pffdtd_jax.scene_setup import sim_setup_from_room
 
     rg = make_shoebox()
     sim_setup_from_room(rg, duration=5e-4, fmax=700.0, PPW=7.7,
@@ -64,9 +64,9 @@ def test_draw_vox_hook(tmp_path):
 
 
 def test_viz_smoke(tmp_path):
-    from pffdtd_tpu.demo import synthetic_box_sim
-    from pffdtd_tpu.engine.numpy_ref import NumpyEngine
-    from pffdtd_tpu.viz import plot_rirs, plot_wave_slices
+    from pffdtd_jax.demo import synthetic_box_sim
+    from pffdtd_jax.engine.numpy_ref import NumpyEngine
+    from pffdtd_jax.viz import plot_rirs, plot_wave_slices
 
     sim = synthetic_box_sim(2.0, 1.6, 1.3, h=0.12, Nt=30, lossy=False,
                             insig_type="hann10", diff_source=False)
@@ -82,8 +82,8 @@ def test_viz_smoke(tmp_path):
 
 
 def test_vox_viz_smoke(tmp_path):
-    from pffdtd_tpu.viz import plot_voxelization
-    from pffdtd_tpu.voxelizer import CartGrid, VoxScene
+    from pffdtd_jax.viz import plot_voxelization
+    from pffdtd_jax.voxelizer import CartGrid, VoxScene
 
     rg = make_shoebox(mats=["a"] * 6)
     cg = CartGrid(h=0.25, offset=3.5, bmin=rg.bmin, bmax=rg.bmax)
@@ -103,14 +103,14 @@ def test_live_slice_view(tmp_path):
     """run_plot parity: live view callback renders frames during run()."""
     import numpy as np
 
-    from pffdtd_tpu.demo import synthetic_box_sim
-    from pffdtd_tpu.engine.jax_engine import JaxEngine
-    from pffdtd_tpu.viz import LiveSliceView
+    from pffdtd_jax.demo import synthetic_box_sim
+    from pffdtd_jax.engine.jax_engine import JaxEngine
+    from pffdtd_jax.viz import LiveSliceView
 
     sim = synthetic_box_sim(1.6, 1.3, 1.1, h=0.14, Nt=12, lossy=True,
                             insig_type="hann10", diff_source=False)
     eng = JaxEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                    mats=sim.mats, dtype=np.float32, backend="xla")
+                    mats=sim.mats, dtype=np.float32)
     view = LiveSliceView(eng, show=False, out_dir=tmp_path / "live")
     eng.run(verbose=False, chunk=4, on_chunk=view)
     frames = sorted((tmp_path / "live").glob("live_*.png"))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pffdtd_tpu.voxelizer import CartGrid, VoxScene
-from pffdtd_tpu.utils import ind2sub3d
+from pffdtd_jax.voxelizer import CartGrid, VoxScene
+from pffdtd_jax.utils import ind2sub3d
 
 from conftest import make_shoebox
 
@@ -56,8 +56,8 @@ def test_shoebox_saf_area():
     """
     rg = make_shoebox(mats=["w", "w", "w", "w", "w", "w"])
     # rotate scene: re-build via from_arrays with rotated points
-    from pffdtd_tpu.geometry.room import RoomGeo
-    from pffdtd_tpu.utils import rotate_az_el_deg
+    from pffdtd_jax.geometry.room import RoomGeo
+    from pffdtd_jax.utils import rotate_az_el_deg
 
     R, _, _ = rotate_az_el_deg(45.0, 0.0)
     rg2 = RoomGeo.from_arrays(rg.pts @ R, rg.tris, rg.mat_ind, rg.mat_side,
@@ -129,9 +129,9 @@ def test_block_size_invariance(shoebox):
 def test_symmetrize_adj_cut_wins():
     """Asymmetric legs resolve cut-wins; missing partners are appended."""
     import numpy as np
-    from pffdtd_tpu.demo import make_shoebox_room
-    from pffdtd_tpu.voxelizer.grid import CartGrid
-    from pffdtd_tpu.voxelizer.vox import VoxScene
+    from pffdtd_jax.demo import make_shoebox_room
+    from pffdtd_jax.voxelizer.grid import CartGrid
+    from pffdtd_jax.voxelizer.vox import VoxScene
 
     rg = make_shoebox_room()
     cg = CartGrid(h=0.25, offset=3.5, bmin=rg.bmin, bmax=rg.bmax)
